@@ -20,8 +20,6 @@ def _mrays(renderer, spp, bounces):
     buffer = rpt.Buffer(renderer.width_, renderer.height_, renderer.filter_)
     # warmup with the SAME spp: the launch is jit-cached per sample count,
     # so a 1-sample warmup leaves the timed call paying a fresh compile
-    # (this bug made round-2's cornell read 8 Mrays/s — VERDICT Weak #3;
-    # the per-wavefront compute is ~24 Mrays/s, experiments/cornell_prof.py)
     renderer.sample(spp, buffer)
     rc0 = renderer.ray_counter.rays
     t0 = time.perf_counter()

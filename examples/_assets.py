@@ -24,7 +24,7 @@ def _preview_decimate(mesh: "rpt.Mesh") -> "rpt.Mesh":
     """Under RPT_TPU_PREVIEW on the CPU backend (the test/smoke path),
     subsample huge meshes below the fat-cluster threshold: the tiled +
     deferred traversal graph takes minutes to compile on CPU for a
-    handful of preview pixels. Real (TPU) runs are untouched."""
+    handful of preview pixels. Accelerator runs are untouched."""
     import jax
 
     from rpt_tpu.scene import CLUSTERS_MIN_TRIS

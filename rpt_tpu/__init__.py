@@ -1,10 +1,10 @@
-"""rpt_tpu — a TPU-native physically-based renderer.
+"""rpt_tpu — a wavefront physically-based renderer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 reference Rust path tracer (neevparikh/rpt): four integrators (volumetric
 path tracing and three photon-mapping estimators), the same
 Scene/Object/Material/Medium/Camera/Renderer API surface, asset I/O, and
-the ODE/animation module — executed as SPMD wavefronts over TPU meshes
+the ODE/animation module — executed as SPMD wavefronts over device meshes
 instead of per-ray recursion over CPU threads.
 
 Everything is re-exported flat, mirroring the reference's ``lib.rs:6-20``.

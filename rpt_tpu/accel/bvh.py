@@ -1,8 +1,8 @@
-"""Flattened, rope-threaded LBVH for stackless TPU traversal.
+"""Flattened, rope-threaded LBVH for stackless wavefront traversal.
 
 Replaces the reference's recursive in-tree ``KdTree<Triangle>``
 (`/root/reference/src/kdtree.rs:238-348`, traversal :154-226). Recursive,
-branchy tree descent cannot map onto a vector machine; the TPU-native design
+branchy tree descent does not map onto lock-step wavefronts; the design
 is:
 
 * **Build** (host, vectorized numpy — no Python recursion): Morton-code
@@ -72,7 +72,7 @@ def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_SIZE
     """Build a BVH over primitive AABBs.
 
     Prefers the native C++ binned-SAH builder (`rpt_tpu.native`) — better
-    tree quality directly cuts the TPU wavefront's traversal steps — and
+    tree quality directly cuts the wavefront's traversal steps — and
     falls back to the fully-vectorized numpy LBVH (Karras 2012 radix tree)
     when no toolchain is available.
     """

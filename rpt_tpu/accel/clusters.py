@@ -1,19 +1,17 @@
-"""Fat triangle clusters for the tile-binned TPU traversal.
+"""Fat triangle clusters for the tile-binned and deferred traversals.
 
-The tri-level short-stack traversal is bound by XLA's gather ISSUE rate
-(~90 Mrows/s regardless of row size up to 512 B — PERF.md): ~9M random
-64-512 B fetches per dragon wavefront is a hard ~100 ms floor. The
-measured escape hatch (experiments/gather_width.py) is that FAT rows
-amortize the per-row cost (2.5 KB rows stream at ~100+ GB/s), and that
-sorting/binning is nearly free on TPU — so the redesign trades many tiny
-dependent fetches for a few fat coherent ones:
+The tri-level short-stack traversal issues ~9M tiny random row fetches per
+dragon wavefront. When XLA's gather costs about the same per row whatever
+the row's width (as it did on the part this was first tuned for), FAT rows
+amortize that per-row cost and sorting/binning is cheap — so the redesign
+trades many tiny dependent fetches for a few fat coherent ones:
 
 * the mesh is cut into **clusters** of <= 64 triangles (tight SAH
   subtrees), each packed into ONE 2.5 KB row (component-major slots, same
   layout discipline as the 8-tri leaf rows);
 * a **tile** of 256 coherent rays culls clusters with dense interval
   arithmetic (no tree, no gathers) and fetches candidate fat rows ONCE
-  per tile, testing all 256x64 ray-triangle pairs densely on the VPU.
+  per tile, testing all 256x64 ray-triangle pairs densely.
 
 This module is the host-side build: cut the FlatBVH into clusters and
 pack the fat rows + bounding spheres. Replaces the subtree flattening
@@ -33,10 +31,9 @@ from .bvh import FlatBVH
 import os
 
 # Fat-row slot count. 32 -> 1.25 KB rows halve the drain phase's fat-row
-# bandwidth vs 64 (2.5 KB) for ~1 extra tree level of node fetches —
-# measured net win on the dragon bounce wavefront with the two-phase
-# deferred traversal (164 vs 175 ms closest-hit, defer_time.py).
-# Overridable for sweeps; every consumer derives the slot count from the
+# bandwidth vs 64 (2.5 KB) for ~1 extra tree level of node fetches; the
+# value was tuned on the earlier target and awaits a GPU re-sweep
+# (ROADMAP). Overridable for sweeps; every consumer derives the slot count from the
 # static row shapes, so the value is build-time only.
 CLUSTER_TRIS = int(os.environ.get("RPT_TPU_CLUSTER_TRIS", "32"))
 CLUSTER_ROW = 10 * CLUSTER_TRIS  # v1/e1/e2 component blocks + id block
@@ -56,9 +53,8 @@ class ClusterTables:
     get far-away spheres that never pass culling.
     ``rec``: (C*64, 12) f32 — per-(cluster, slot) recovery rows
     [v1(3) e1(3) e2(3) id pad pad]: one narrow gather decodes the winning
-    slot after the round loop (gathering the 2.5 KB fat row per ray was
-    measured at ~5 ms/wavefront; 48 B rows are issue-bound ~3 ms and skip
-    a 656 MB relayout).
+    slot after the round loop (cheaper than gathering the 2.5 KB fat row
+    per ray, and it skips a 656 MB relayout).
     ``sup``: (S, 4) f32 — super-spheres, each bounding 64 consecutive
     clusters. Small enough (S ~ C/64) for an exact per-RAY dense
     line-sphere test: the per-ray rounds path orders candidate supers
@@ -139,7 +135,7 @@ def pack_clusters(bvh: FlatBVH, verts: np.ndarray,
     ``max_tris`` sets the fat-row slot count for THIS table set (every
     traversal consumer derives it from the static row shapes, so two
     differently-sized sets can coexist — e.g. a CT=16 any-hit set next
-    to the CT=32 closest-hit set; PERF.md round 5).
+    to the CT=32 closest-hit set).
     """
     ct = int(max_tris)
     crow = 10 * ct
@@ -228,9 +224,10 @@ def pack_wide_cluster_tree(bb_lo, bb_hi, tri_counts, wide: int = WIDE):
     """Collapse the binary cluster BVH into a ``wide``-ary tree of
     ``wide``-child rows (256 B at wide=8, 512 B at wide=16).
 
-    Rationale (measured, PERF.md): XLA's random gather issues at the same
-    ~90 Mrows/s for any row <= 512 B, so one 256-512 B fetch testing 8-16
-    children costs what one 64 B pair-packed fetch testing two does.
+    Rationale: where a random gather costs about the same per row for any
+    row <= 512 B (true of the part this was first tuned for; unmeasured on
+    the GPU), one 256-512 B fetch testing 8-16 children costs what one
+    64 B pair-packed fetch testing two does.
     Incoherent bounce rays touch ~25 binary cluster nodes (fat boxes
     prune weakly); the wide collapse cuts fetches ~2-3x and shrinks the
     slow-lane tail the same way.

@@ -1,20 +1,19 @@
 """Deferred-leaf wide-tree traversal — the INCOHERENT-wavefront path.
 
 Replaces the tri-level short-stack fallback (``intersect._traverse``) for
-big meshes. Rationale (measured, PERF.md "incoherent-wavefront wall"):
+big meshes. Rationale (PERF.md, from the part this was first tuned for):
 
-* XLA's random row gather issues at ~90 Mrows/s for ANY row width up to
-  512 B, so traversal cost is the NUMBER of fetches, not bytes. A wide
+* where a random row gather costs about the same for ANY row width up to
+  512 B, traversal cost is the NUMBER of fetches, not bytes. A wide
   (8/16-ary) cluster tree collapses 3-4 binary levels into one 256-512 B
-  row that costs the SAME to fetch as a 64 B pair row.
+  row that costs the same to fetch as a 64 B pair row.
 * Fat 64-tri cluster rows (1.25-2.5 KB) amortize the gather wall for the
   actual triangle tests, but only when fetched by compacted batches of
   lanes that NEED them.
 
-Design (round 3 — DESCENT-FIRST two-phase; validated by
-experiments/descent_first_sim.py: +7% node visits, same 2.7 fat
-tests/ray, candidate-buffer occupancy p99 = 10 vs the interleaved
-schedule):
+Design (DESCENT-FIRST two-phase; a host replay of the dragon bounce
+wavefront gave +7% node visits, the same 2.7 fat tests/ray, and
+candidate-buffer occupancy p99 = 10 against the interleaved schedule):
 
 1. **Phase A — descent to completion.** Walk the wide tree with box-only
    pruning, appending every leaf-hit row as ONE packed candidate group
@@ -32,16 +31,15 @@ schedule):
    wavefronts; possible in adversarial scenes) finish in a classic
    alternating descend/drain fixpoint — a no-op when no lane stalled.
 
-The round-2 interleaved schedule (short descent bursts alternating with
-capped test bursts, tiered widths) paid per-phase fixed costs ~15x over:
-the measured ~0.43 ms fixed cost per traversal step and per test round
-is sequential-depth-bound, so the fewer, longer, compacted phases of the
-two-phase design dominate it. Exact: every reachable cluster is tested
-or provably pruned.
+An interleaved schedule (short descent bursts alternating with capped
+test bursts, tiered widths) pays the fixed cost per traversal step and
+per test round many times over; that cost is sequential-depth-bound, so
+the fewer, longer, compacted phases of the two-phase design win. Exact:
+every reachable cluster is tested or provably pruned.
 
 Reference analog: the ordered kd descent with t-pruning
 (`/root/reference/src/kdtree.rs:154-226`); the wide-node deferral and
-two-phase schedule are TPU-specific.
+two-phase schedule are wavefront-specific.
 """
 
 from __future__ import annotations
@@ -59,48 +57,36 @@ from .vec import Vec3
 
 # Candidate-group buffer depth. Descent-first needs the buffer to hold a
 # whole traversal's groups: dragon bounce wavefront occupancy is mean
-# 2.2 / p99 10 / max 15 (descent_first_sim.py); overflow lanes stall and
-# finish in the cleanup fixpoint (correct, just slower).
+# 2.2 / p99 10 / max 15 (host replay); overflow lanes stall and finish in
+# the cleanup fixpoint (correct, just slower).
 CAND_SLOTS = int(os.environ.get("RPT_TPU_CAND_SLOTS", "16"))
 # alternating-fallback burst lengths (small wavefronts + cleanup only)
 DESCENT_STEPS = int(os.environ.get("RPT_TPU_DESCENT_STEPS", "6"))
 TEST_ROUNDS = int(os.environ.get("RPT_TPU_TEST_ROUNDS", "3"))
-# Stage compaction ratio. Swept on the real chip under the TOP_SEED=0
-# default (round 5, bench A/B at identical mean radiance): 4 -> 2.68
-# Mrays/s, 8 -> 3.10, 16 -> 3.16 (confirmed twice), 32 -> 2.81,
-# 64 -> 2.43. DIV=16 balances per-rung boundary costs (full-width
-# argsort + packed-block gather per rung: 262k->16k->4k is 3 rungs vs
-# DIV=4's 4) against the extra iterations the widest stage must run
-# before its active count fits the next rung (DIV=64's 262k->4k runs
-# the expensive full-width stage far too long).
+# Stage compaction ratio. DIV=16 balances per-rung boundary costs
+# (full-width argsort + packed-block gather per rung: 262k->16k->4k is 3
+# rungs vs DIV=4's 4) against the extra iterations the widest stage must
+# run before its active count fits the next rung. Swept on the earlier
+# target; the GPU re-sweep is on the ROADMAP.
 LADDER_DIV = int(os.environ.get("RPT_TPU_LADDER_DIV", "16"))
 MIN_STAGE = int(os.environ.get("RPT_TPU_MIN_STAGE", "4096"))  # narrowest ladder stage
-# Narrow ladder stages are SEQUENTIAL-fixed-cost bound (~0.4 ms per
-# while_loop iteration regardless of width <= ~32k, PERF.md): running K
-# steps per iteration cuts the boundary count K-fold. Steps are no-ops
+# Narrow ladder stages are bound by the SEQUENTIAL fixed cost of each
+# while_loop iteration, whatever the width below ~32k: running K steps
+# per iteration cuts the boundary count K-fold. Steps are no-ops
 # for finished lanes, so overshoot only costs (K-1) wasted cheap steps.
 UNROLL_WIDTH = int(os.environ.get("RPT_TPU_UNROLL_WIDTH", "32768"))
 UNROLL_K = int(os.environ.get("RPT_TPU_UNROLL_K", "4"))
 # Dense top-of-tree seeding (zero-gather broadcast tests of the top two
-# row-levels; see _dense_top_seed). DEFAULT OFF — measured NET-NEGATIVE
-# on the real chip (round 5, experiments/machinery_bisect.py, queue
-# decision rule "keep unless OFF wins >2%"): the 262k-lane dragon
-# camera wavefront runs 291.4 ms seeded vs 109.7 ms unseeded, and the
-# ZERO-ACTIVE machinery cost is 252.7 vs 56.3 ms. The ~2 gathers/ray it
-# saves (~25 ms) are swamped by its seeded stack (M = 2*tree_top+1
-# extra columns) widening the packed i32 block that EVERY ladder rung
-# boundary gathers and scatters, plus tree_top+1 full-width broadcast
-# slab tests. This single flag was the round-5 bench regression
-# (0.79 Mrays/s with it, landed untested during the round-4 outage).
-# The depth-capped seed stack (spill -> root-rest entry, N>=2 below)
-# was then built to recover the gather win without the state bloat and
-# ALSO measured net-negative on the full bench (TOP_SEED=2: 2.19 vs
-# 3.16 Mrays/s, identical mean radiance, round-5 queue #4) — even 2N+2
-# extra packed columns plus the seed's broadcast slab tests cost more
-# than the ~2 gathers/ray saved. Seeding stays available per-scene.
+# row-levels; see _dense_top_seed). DEFAULT OFF — measured net-negative
+# on the earlier target, full and depth-capped alike: the ~2 gathers/ray
+# it saves were swamped by its seeded stack (M = 2*tree_top+1 extra
+# columns) widening the packed i32 block that EVERY ladder rung boundary
+# gathers and scatters, plus tree_top+1 full-width broadcast slab
+# tests. Unmeasured on the GPU (ROADMAP). Seeding stays available
+# per-scene.
 # "0" = off (default), "1" = full dense seed (all internal root
 # children get direct stack entries — M = 2*tree_top+1 extra stack
-# columns, measured as the round-5 bench regression), N>=2 = DEPTH-
+# columns), N>=2 = DEPTH-
 # CAPPED seed: only each lane's nearest N internal root children get
 # entry pairs; the rest merge into ONE root-restart entry (re-descends
 # those subtrees through the normal gather path when popped). Caps the
@@ -113,11 +99,11 @@ TOP_SEED_CAP = None if _ts in ("0", "1") else max(1, int(_ts))
 # Root-segment cull: one broadcast slab test of the static root row
 # retires lanes whose [t_min, cutoff] segment misses every root child
 # before the ladder runs. Exact (the root row's children bound the whole
-# mesh) and CPU-exactness-tested, but MEASURED SLIGHTLY NEGATIVE on the
-# dragon bench (2.62 vs 2.68 Mrays/s, round 5): its shadow lanes start
-# on the mesh and rarely cull, so the extra full-width test is pure
-# overhead there. Default off; enable for scenes whose shadow/closest
-# wavefronts aim far off the mesh bbox (PERF.md round 5).
+# mesh) and CPU-exactness-tested, but measured slightly negative on the
+# dragon bench on the earlier target: its shadow lanes start on the mesh
+# and rarely cull, so the extra full-width test is pure overhead there.
+# Default off; enable for scenes whose shadow/closest wavefronts aim far
+# off the mesh bbox.
 ROOT_CULL = os.environ.get("RPT_TPU_ROOT_CULL", "0") == "1"
 
 
@@ -179,8 +165,8 @@ def _descend_mask(state):
 def _ah_lanes(limit_u, any_hit):
     """Per-lane any-hit mask. ``any_hit`` is True, False, or "mixed";
     mixed pools occlusion lanes (finite limit) with closest-hit lanes
-    (limit INF) in ONE wavefront so the per-traversal-call machinery
-    (~35-40 ms in-graph, experiments/ladder_overhead.py) is paid once."""
+    (limit INF) in ONE wavefront so the per-traversal-call machinery is
+    paid once."""
     if any_hit == "mixed":
         return limit_u < INF
     return jnp.ones_like(limit_u, bool) if any_hit else None
@@ -523,8 +509,7 @@ def _pack_blocks(state, uray, inv_dir, limit_u):
     """Pack the 8-tuple state + ray fields + limit into ONE f32 and ONE
     i32 matrix. Rung-boundary compaction then costs 2 gathers + 2
     scatters total, instead of ~20 separate ops — the per-op FIXED cost
-    (not bytes) dominated the ladder machinery (measured ~62 ms per
-    traversal with ZERO active lanes, experiments/ladder_overhead.py)."""
+    (not bytes) dominated the ladder machinery on the earlier target."""
     cur, sp, stack, best_u, pack, cand_t, cand_id, done = state
     fblk = jnp.concatenate(
         [
@@ -721,10 +706,9 @@ def deferred_traverse(ct: ClusterTables, ray: Ray, t_min, limit, best_time,
         state = finish(state, limit_u)
 
         # --- Cleanup: rare buffer-overflow stalls (usually a no-op) -----
-        # A few hundred lanes stall per dragon wavefront; running the
-        # alternating fixpoint at full width cost ~90 ms (measured,
-        # two_phase_split.py) — compact the not-done lanes to MIN_STAGE
-        # per cycle instead.
+        # A few hundred lanes stall per dragon wavefront; rather than run
+        # the alternating fixpoint at full width, compact the not-done
+        # lanes to MIN_STAGE per cycle.
         fblk0, iblk0 = _pack_blocks(state, uray, inv_dir, limit_u)
 
         def cleanup_body(blocks):

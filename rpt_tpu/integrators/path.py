@@ -46,21 +46,18 @@ from ..vec import Vec3, where
 FIREFLY_CLAMP = 100.0  # renderer.rs:18
 BACKGROUND_DIST = 400.0  # renderer.rs:199
 RR_P = 0.8  # renderer.rs:193
-# Concatenate all lights' shadow rays into one occlusion wavefront.
-# Was net-negative in round 2 (1.70 -> 1.61 Mrays/s), but two later
-# changes flipped it: zero-contribution gating retires ~a third of the
-# pooled lanes at entry, and the per-traversal-call machinery (~35-40 ms
-# in-graph, experiments/ladder_overhead.py) is shared instead of paid
-# per light. Measured 2.15 -> 2.72 Mrays/s on the dragon bench.
+# Concatenate all lights' shadow rays into one occlusion wavefront:
+# zero-contribution gating retires ~a third of the pooled lanes at entry,
+# and the per-traversal-call machinery is shared instead of paid per
+# light. Chosen on the earlier target; unmeasured on the GPU.
 SHADOW_BATCH = os.environ.get("RPT_TPU_SHADOW_BATCH", "1") == "1"
 # Pool level b's shadow rays with level b+1's bounce closest-hit into ONE
 # mixed traversal per scan iteration (intersect.mixed_closest_occluded).
-# Measured NET-NEGATIVE on the dragon bench (2.72 -> 2.55 without the L0
-# tile prepass, 2.27 with it): mixing deep closest lanes with shallow
-# any-hit lanes in one ladder costs more lock-step width than the shared
-# per-call machinery saves. Kept opt-in (radiance is bit-identical —
-# goldens pass either way) for narrow wavefronts where fixed costs
-# dominate; see PERF.md round-3 notes.
+# Measured net-negative on the dragon bench on the earlier target: mixing
+# deep closest lanes with shallow any-hit lanes in one ladder costs more
+# lock-step width than the shared per-call machinery saves. Kept opt-in
+# (radiance is bit-identical — goldens pass either way) for narrow
+# wavefronts where fixed costs dominate; unmeasured on the GPU.
 POOLED_SCHEDULE = os.environ.get("RPT_TPU_POOLED_SCHEDULE", "0") == "1"
 
 
@@ -172,9 +169,9 @@ def _shadow_visible_batch(scene, tables, pos: Vec3, pending, mask,
                           coherent: bool):
     """Visibility for every light's shadow ray from the same surface
     points, CONCATENATED into one occlusion wavefront: per-light passes
-    each paid the traversal's sequential fixed costs (~0.4 ms x dozens of
-    rounds) and compacted their survivor ladders separately; one n*L-lane
-    query shares both (experiments/shadow_components.py). Falls back to
+    each pay the traversal's sequential fixed costs (dozens of rounds)
+    and compact their survivor ladders separately; one n*L-lane query
+    shares both. Falls back to
     per-light queries for the exact-NEE parity mode."""
     if not pending:
         return []
@@ -279,8 +276,8 @@ def trace_surface(scene, tables, ray: Ray, keys, max_bounces: int,
     # levels 1..max_bounces all trace the SAME incoherent graph, so they
     # run as ONE lax.scan over the level index — the traversal subgraph
     # (tiled+deferred, by far the largest part of the program) compiles
-    # once instead of once per bounce (round-2 compile time grew ~60%
-    # per bounce from full unrolling; VERDICT r2 Weak #5).
+    # once instead of once per bounce (full unrolling grew compile time
+    # ~60% per bounce).
     carry, out0 = level((ray, keys, jnp.ones(n, bool)), 0, True, True)
     if max_bounces >= 1:
         carry, outs = jax.lax.scan(

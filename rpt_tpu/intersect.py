@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from .dtypes import DTYPE, INF
 from .ray import Hit, Ray, closer
-from .vec import Affine, Mat3, Vec3, take, where
+from .vec import _MAT3_FIELDS, Affine, Mat3, Vec3, take, where
 
 
 # ---------------------------------------------------------------------------
@@ -61,17 +61,18 @@ class PlaneSet:
         return int(self.material.shape[0])
 
 
-# Packed-row layout constants. TPU-first design notes (measured on v5e):
-# * XLA's gather costs ~the same per ROW whether the row is 1 or 128 floats
-#   (~84 Mrows/s) — so each traversal step fetches exactly ONE node row
-#   (both children's boxes -> ordered near-first descent) and ONE leaf row
+# Packed-row layout constants. Design notes (from the part this was first
+# tuned for; to be re-measured on the GPU):
+# * a gather cost about the same per ROW whether the row held 1 or 128
+#   floats — so each traversal step fetches exactly ONE node row (both
+#   children's boxes -> ordered near-first descent) and ONE leaf row
 #   (8 triangles).
-# * Extracting single columns from a gathered (n, W) row costs a cross-lane
+# * Extracting single columns from a gathered (n, W) row cost a cross-lane
 #   shuffle EACH — so rows are laid out COMPONENT-MAJOR in blocks that are
 #   consumed as contiguous lane slices, and the triangle math is vectorized
 #   across the 8 slots.
 # * Per-lane stack push/pop uses dense one-hot masking over the (n, DEPTH)
-#   stack instead of scatter/gather (dense VPU ops beat XLA scatters).
+#   stack instead of scatter/gather (dense elementwise ops beat scatters).
 # Shading attributes (normals, material) are fetched once per ray AFTER
 # traversal.
 NODE_ROW = 16
@@ -196,10 +197,37 @@ def intersect_cubes(prims: PrimSet, ray: Ray, t_min, best: Hit) -> Hit:
         ok = (start <= end) & (end >= t_min)
         inside = start < t_min
         t = jnp.where(inside, end, start)
+        ok &= ~_slides_on_face(prims.world_to_obj[i], ray.origin, local, t)
         local_n = where(inside, end_n, start_n)
         return _local_hit_to_world(prims, i, local_n, t, ok)
 
     return _foreach_prim(prims.n, body, best)
+
+
+def _slides_on_face(w: Affine, world_o: Vec3, local: Ray, t) -> jax.Array:
+    """True where the ray origin and the candidate hit both lie within f32
+    rounding of the same face plane of the unit cube: the segment slides
+    along the surface and never enters the solid (same f32 deviation as
+    `intersect_planes`, which see). Rounding puts such computed origins
+    randomly just inside or just outside, and "inside" returned the far
+    exit — a photon on a box face was occluded from a gather point on the
+    same face by the box itself, or not, at the whim of one ulp (the GPU's
+    fused multiply-adds flipped ~7% of the lampshade's gather pixels
+    against the CPU). The tolerance scales with the magnitude of the
+    computation that produced each local coordinate, |W||o| + |b|."""
+    a = w.linear
+    mag = Mat3(*[jnp.abs(getattr(a, f)) for f in _MAT3_FIELDS]).apply(
+        world_o.map(jnp.abs)
+    ) + w.translation.map(jnp.abs)
+    hit = local.at(t)
+    tol = 32.0 * jnp.finfo(DTYPE).eps
+    slides = jnp.zeros(jnp.shape(t), bool)
+    for o_c, h_c, m_c in zip((local.origin.x, local.origin.y, local.origin.z),
+                             (hit.x, hit.y, hit.z), (mag.x, mag.y, mag.z)):
+        for face in (-0.5, 0.5):
+            slides |= ((jnp.abs(o_c - face) <= tol * m_c)
+                       & (jnp.abs(h_c - face) <= tol * (m_c + jnp.abs(h_c))))
+    return slides
 
 
 def intersect_planes(planes: PlaneSet, ray: Ray, t_min, best: Hit) -> Hit:
@@ -221,7 +249,7 @@ def intersect_planes(planes: PlaneSet, ray: Ray, t_min, best: Hit) -> Hit:
     ~eps*||o||, NOT ~eps*|that coordinate| (a floor through 0 has its
     noise exactly where the normal-weighted component vanishes); see
     `_origin_on_plane`. Measured floor-photon residuals <= 6 eps*||o||
-    (round-4 repros; triangles get the same guard)."""
+    (triangles get the same guard)."""
 
     def body(i):
         n = planes.normal[i].broadcast_to(ray.origin.shape)
@@ -248,7 +276,7 @@ def intersect_planes(planes: PlaneSet, ray: Ray, t_min, best: Hit) -> Hit:
 def intersect_monomials(prims: PrimSet, ray: Ray, t_min, best: Hit) -> Hit:
     """Newton + 60-step bisection for y = h (x^2+z^2)^2
     (shape/monomial_surface.rs:22-107) — already fixed-iteration, so it maps
-    to TPU directly; vectorized with masks."""
+    to wavefronts directly; vectorized with masks."""
 
     def body(i):
         local = ray.transform(prims.world_to_obj[i])
@@ -350,8 +378,8 @@ def _origin_on_plane(num, pn, v1, o):
     the reference's |cosine|>=1e-8 guard only rejects on-plane grazing
     rays under f64 noise levels). A grazing ray between two points ON a
     mesh floor computed t = tiny/tiny — 50.7% of noisy floor-photon
-    visibility rechecks (photon.rs:353-361) were spuriously self-occluded
-    (repro: round-4 /tmp/tri_graze_repro2.py). ``num = pn.(v1-o)`` with
+    visibility rechecks (photon.rs:353-361) were spuriously self-occluded.
+    ``num = pn.(v1-o)`` with
     pn normalized.
 
     Threshold scale: the absolute f32 error of a COMPUTED position
@@ -621,7 +649,7 @@ def _traverse_step(state, ray, inv_dir, limit, nodes, leaves, t_min, any_hit, de
     first = jnp.where(want_l & (~want_r | l_near), lptr, rptr)
     second = jnp.where(l_near, rptr, lptr)
 
-    # dense one-hot stack ops (cheaper than XLA scatter/gather on TPU).
+    # dense one-hot stack ops instead of XLA scatter/gather.
     # stack depth is an exact host-computed bound (pack_bvh), so overflow
     # is impossible for well-formed trees; the guards below additionally
     # make the step safe (drop push / terminate lane) rather than silently
@@ -652,7 +680,7 @@ DENSE_TRI_ROWS = 8  # scenes with <= 8 leaf rows (64 tris) skip the BVH
 def dense_tri_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
     """Gather-free path for tiny meshes (e.g. Cornell's 14 wall triangles):
     every leaf row is a static slice broadcast against the wavefront — pure
-    fused VPU math, no traversal loop."""
+    fused elementwise math, no traversal loop."""
     n = ray.origin.shape[0] if ray.origin.shape else ()
     n_rows = bvh.leaves.shape[0]
     time = best.time
@@ -698,16 +726,25 @@ TILED_MIN_RAYS = 4096
 
 def bvh_closest_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit,
                     clusters=None, coherent: bool = True) -> Hit:
-    """Closest-hit query. Big meshes + wide COHERENT wavefronts (camera
-    rays — ``coherent`` is the caller's static hint) take the tile-binned
-    fat-cluster path (rpt_tpu.tiled) with an exact per-ray certificate,
-    then the deferred wide-tree traversal finishes uncertified lanes.
-    Incoherent wavefronts (bounce rays) skip the tile pass entirely —
-    hemisphere tiles certify 0% yet burn the full tile round caps
-    (measured, PERF.md) — and go straight to the deferred traversal.
-    Shading attributes for the winning triangle are fetched at the end."""
+    """Closest-hit query (see `mesh_closest`); shading attributes for the
+    winning triangle are fetched at the end."""
     if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
         return dense_tri_hit(bvh, ray, t_min, best)
+    time, tri, u, v, w = mesh_closest(bvh, ray, t_min, best.time, clusters, coherent)
+    return _finish_hit(bvh, best, time, tri, u, v, w)
+
+
+def mesh_closest(bvh: BVHTables, ray: Ray, t_min, best_time, clusters=None,
+                 coherent: bool = True):
+    """Closest triangle hit -> ``(time, tri, u, v, w)``; ``tri`` is -1
+    where no triangle beats ``best_time``. Big meshes + wide COHERENT
+    wavefronts (camera rays — ``coherent`` is the caller's static hint)
+    take the tile-binned fat-cluster path (rpt_tpu.tiled) with an exact
+    per-ray certificate, then the deferred wide-tree traversal finishes
+    uncertified lanes. Incoherent wavefronts (bounce rays) skip the tile
+    pass entirely — hemisphere tiles certify 0% — and go straight to the
+    deferred traversal. Without clusters, or on narrow wavefronts, the
+    exact short-stack `_traverse` answers."""
     n = ray.origin.shape[0] if ray.origin.shape else ()
     if clusters is not None and n and n >= TILED_MIN_RAYS:
         from .deferred import deferred_traverse
@@ -716,7 +753,7 @@ def bvh_closest_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit,
             from .tiled import tiled_traverse
 
             time, tri, u, v, w, certified = tiled_traverse(
-                clusters, ray, t_min, INF, best.time, any_hit=False
+                clusters, ray, t_min, INF, best_time, any_hit=False
             )
             t2, tr2, u2, v2, w2 = deferred_traverse(
                 clusters, ray, t_min, INF, time, any_hit=False,
@@ -728,15 +765,13 @@ def bvh_closest_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit,
             u = jnp.where(improved, u2, u)
             v = jnp.where(improved, v2, v)
             w = jnp.where(improved, w2, w)
-        else:
-            time, tri, u, v, w = deferred_traverse(
-                clusters, ray, t_min, INF, best.time, any_hit=False
-            )
-        return _finish_hit(bvh, best, time, tri, u, v, w)
-    time, tri, u, v, w = _traverse(
-        bvh, ray, t_min, jnp.full(n, INF, DTYPE), best.time, any_hit=False
+            return time, tri, u, v, w
+        return deferred_traverse(
+            clusters, ray, t_min, INF, best_time, any_hit=False
+        )
+    return _traverse(
+        bvh, ray, t_min, jnp.full(n, INF, DTYPE), best_time, any_hit=False
     )
-    return _finish_hit(bvh, best, time, tri, u, v, w)
 
 
 def tiled_anyhit_prepass(clusters, ray: Ray, t_min, limit_arr, live):
@@ -770,11 +805,10 @@ def bvh_any_hit(bvh: BVHTables, ray: Ray, t_min, limit, clusters=None,
     occlusion query for shadow rays.
 
     ``coherent`` is the caller's STATIC hint: camera-level (L0) shadow
-    wavefronts tile well after the coherence sort (79-96% certified,
-    experiments/shadow_components.py), but bounce-level shadow origins
-    are scattered and certify 0% — for those the tile pass burned
-    ~50-60 ms for nothing, so incoherent wavefronts go straight to the
-    deferred traversal. ``skip`` marks lanes already known occluded
+    wavefronts tile well after the coherence sort (79-96% certified), but
+    bounce-level shadow origins are scattered and certify 0% — for those
+    the tile pass is pure cost, so incoherent wavefronts go straight to
+    the deferred traversal. ``skip`` marks lanes already known occluded
     (e.g. by an analytic prim); they are excluded from traversal."""
     n = ray.origin.shape[0] if ray.origin.shape else ()
     if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
@@ -889,15 +923,16 @@ def mixed_closest_occluded(scene, tables, ray: Ray, limit, n_closest: int,
     lanes. Returns ``(Hit over the closest slice, occluded bool over the
     occlusion slice)``.
 
-    Rationale: each deferred-traversal call costs ~35-40 ms of in-graph
-    machinery regardless of work (experiments/ladder_overhead.py), and
-    the integrator used to issue separate closest + occlusion calls per
+    Rationale: each deferred-traversal call pays in-graph machinery
+    regardless of work, and the integrator used to issue separate
+    closest + occlusion calls per
     level. Pooling a level's shadow rays with the NEXT level's bounce
     closest-hit (they are independent given the previous hit) shares
     that cost; per-lane results are unchanged (the traversal is exact
     per lane regardless of pooling), so radiance is bit-identical.
     Reference analog: the per-pixel recursion interleaves these same
-    queries (renderer.rs:286-321 + 362-409); pooling is TPU scheduling.
+    queries (renderer.rs:286-321 + 362-409); pooling is wavefront
+    scheduling.
     """
     if t_min is None:
         t_min = scene.t_min

@@ -1,10 +1,10 @@
 """Materials: the reference's 4-way BSDF enum, compiled to a table + masks.
 
 Parity: `/root/reference/src/material.rs:8-289`. The reference dispatches a
-Rust enum per ray; the TPU-native design stores one row per distinct
+Rust enum per ray; the wavefront design stores one row per distinct
 material in a small table, tags every hit with a material id, and evaluates
 ``sample_f``/``bsdf`` branchlessly across the wavefront — all four lobes are
-computed on the VPU and selected by the kind mask (cheap: the lobes are a
+computed for every lane and selected by the kind mask (cheap: the lobes are a
 handful of transcendentals each, and this avoids gather/scatter
 re-sorting).
 

@@ -114,7 +114,7 @@ class Medium:
                           color=None) -> "Medium":
         """Homogeneous medium with a Henyey-Greenstein phase function.
 
-        TPU-native extension (not in the reference): anisotropic scattering
+        Extension (not in the reference): anisotropic scattering
         with asymmetry parameter g in (-1, 1).
         """
         col = color if color is not None else hex_color(0xD2B48C)

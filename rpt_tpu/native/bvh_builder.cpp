@@ -1,12 +1,12 @@
 // Native binned-SAH BVH builder.
 //
-// The TPU-native replacement for the reference's in-tree recursive kd-tree
+// The wavefront design's replacement for the reference's in-tree recursive kd-tree
 // construction (/root/reference/src/kdtree.rs:238-348). The device-side
 // traversal (rpt_tpu/intersect.py) consumes the same FlatBVH arrays the
 // numpy LBVH builder emits; this C++ builder produces higher-quality trees
 // (binned surface-area heuristic, 16 bins) and builds ~10x faster than the
 // vectorized-numpy fallback on one host core — tree quality directly sets
-// the wavefront traversal's step count on the TPU.
+// the wavefront traversal's step count on the device.
 //
 // Exposed as a flat C ABI for ctypes (no pybind11 in the image).
 

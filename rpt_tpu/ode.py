@@ -8,7 +8,7 @@ remainder step (particle_system.rs:10-25) — as a ``lax.scan`` on device
 
 Force models are vectorized: the reference's O(n^2) Python-style pair loops
 (particle_system.rs:46-63, 72-129) become dense (n, n) pair tensors — tiny
-n makes this trivially fast on the VPU.
+n makes this trivially fast as fused elementwise device code.
 """
 
 from __future__ import annotations

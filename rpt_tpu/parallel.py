@@ -1,14 +1,17 @@
-"""Multi-chip execution: pixel/sample sharding over a device mesh.
+"""Multi-device execution: pixel/sample sharding over a device mesh.
 
 The reference's entire parallelism model is rayon work-stealing over image
 rows and photon indices (`renderer.rs:159-169`, `photon.rs:663-674`) on one
-shared-memory host. The TPU-native equivalent (SURVEY.md §2.3, §5.8):
+shared-memory host. The device-mesh equivalent (SURVEY.md §2.3, §5.8):
 
-* **dp axis** — pixel blocks sharded across chips (the analog of row
+* **dp axis** — pixel blocks sharded across devices (the analog of row
   parallelism). Scene tables are replicated (they are small: even the
   dragon's triangles are ~60 MB).
-* **sp axis** — samples-per-pixel sharded across chips; the per-pixel frame
-  accumulation is a ``psum`` over 'sp' riding the ICI.
+* **sp axis** — samples-per-pixel sharded across devices; the per-pixel
+  frame accumulation is a ``psum`` over 'sp'.
+
+The mesh shape follows the algorithm alone: the devices of one host are
+joined all to all, so no axis order is favoured.
 * Photon shooting shards the photon index over the full mesh and
   ``all_gather``s deposited photons (see `rpt_tpu.integrators.photon`).
 
@@ -92,7 +95,7 @@ def render_sharded(scene, camera, width: int, height: int, num_samples: int,
 
         acc0 = jnp.zeros((xn.shape[0], 3), jnp.float32)
         total, _ = jax.lax.scan(one_sample, acc0, jnp.arange(local_samples))
-        # frame accumulation across the sample axis rides the ICI
+        # frame accumulation across the sample axis
         return jax.lax.psum(total, "sp")
 
     out = launch(xn, yn, pix_ids, scene.tables, key)
@@ -105,7 +108,7 @@ def photon_render_sharded(scene, camera, width: int, height: int,
                           occlusion_check: bool = True):
     """Photon-map camera pass with pixels sharded over 'dp' and samples
     over 'sp'; the photon map is replicated (it is small — §5.8). The
-    TPU-native analog of the reference's row-parallel camera pass
+    device-mesh analog of the reference's row-parallel camera pass
     (photon.rs:704-717).
 
     Returns the (H*W, 3) radiance *sum* over ``num_samples`` (host numpy).
@@ -165,8 +168,8 @@ def shoot_photons_sharded(scene, key, photon_count: int, watts: float, kind: str
     (the analog of rayon's parallel photon loop, photon.rs:663-674).
 
     Each device shoots photon_count/n_devices photons from its own key
-    stream; deposit buffers are gathered across devices (all-gather over
-    ICI in the SPMD program; here realized by the sharded output).
+    stream; deposit buffers are gathered across devices (the sharded
+    output, pulled to the host).
     Returns host (surface_rows, volume_rows) float32 arrays.
     """
     from .integrators.photon import _find_object_light, _shoot_launch

@@ -1,7 +1,7 @@
 """Counter-based RNG and sampling routines.
 
 The reference threads a per-thread ``StdRng`` seeded from entropy through
-every routine (`renderer.rs:163`, nondeterministic). The TPU-native design
+every routine (`renderer.rs:163`, nondeterministic). The wavefront design
 replaces this with threefry counter keys: every ray carries a key; bounces
 and purposes derive subkeys by ``fold_in``. Renders are bit-reproducible
 given a seed — strictly stronger than the reference.

@@ -237,10 +237,10 @@ def compile_scene(scene: Scene) -> CompiledScene:
             fat, sph, rec, sup, supblk, (bb_lo, bb_hi, tri_counts), n_c = (
                 pack_clusters(bvh, v)
             )
-            # 16-ary default: a 512 B row costs the same gather as 256 B
-            # (PERF.md) but cuts node visits ~15% and phases ~8% on
-            # incoherent wavefronts (experiments/wide_sim.py); width is
-            # sweepable via RPT_TPU_TREE_WIDE
+            # 16-ary default: where a 512 B row costs the same gather as
+            # 256 B (the earlier target), it cuts node visits ~15% on
+            # incoherent wavefronts (host replay); width is sweepable via
+            # RPT_TPU_TREE_WIDE
             ctree, ctree_depth, ctree_top = pack_wide_cluster_tree(bb_lo, bb_hi, tri_counts)
             tables["clusters"] = ClusterTables(
                 fat=jnp.asarray(fat), sph=jnp.asarray(sph),
@@ -252,10 +252,9 @@ def compile_scene(scene: Scene) -> CompiledScene:
             # Optional SECOND table set with a different fat-row slot
             # count for the ANY-HIT (shadow) phase: any-hit lanes drain
             # fat rows early (no best-pruning ramp), where a halved row
-            # cost wins (CT=16 any-hit 151.9 ms vs CT=32's 189.8 on the
-            # dragon L1 wavefront) while closest-hit keeps CT=32 (CT=16
-            # lost 10.6% there) — PERF.md round 5. Flag-gated pending the
-            # net-bench A/B (RPT_TPU_AH_CT=16 to enable).
+            # cost can win while closest-hit keeps CT=32. Net-negative on
+            # the dragon bench on the earlier target; off unless
+            # RPT_TPU_AH_CT=16.
             import os as _os
 
             from .accel.clusters import CLUSTER_TRIS

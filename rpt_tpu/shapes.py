@@ -119,7 +119,7 @@ class Mesh(Transformable):
     """A triangle soup stored as SoA numpy arrays.
 
     The reference's ``Mesh = KdTree<Triangle>`` (shape/mesh.rs:103) builds a
-    per-mesh recursive kd-tree; the TPU design instead keeps the raw
+    per-mesh recursive kd-tree; this design instead keeps the raw
     triangles here and lets the scene compiler build one flattened world-space
     BVH over *all* scene triangles (`rpt_tpu.accel.bvh`).
 

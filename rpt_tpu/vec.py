@@ -1,12 +1,11 @@
 """Structure-of-arrays 3-vector math.
 
-TPU-first design note: the reference stores geometry as arrays-of-structs of
-``glm::DVec3`` (`/root/reference/src/shape.rs:50-56`). On TPU, an ``(N, 3)``
-array wastes vector lanes (the last dimension is padded to 128), and axis=-1
-reductions (dot products) tile poorly. We instead keep each component as its
-own flat ``(N,)`` array — every vector op is then a pure element-wise VPU op
-over fully-utilized ``(8, 128)`` tiles, and XLA fuses whole shading
-expressions into single kernels.
+Design note: the reference stores geometry as arrays-of-structs of
+``glm::DVec3`` (`/root/reference/src/shape.rs:50-56`). An ``(N, 3)`` array
+makes every dot product an axis=-1 reduction over a tiny minor dimension.
+We instead keep each component as its own flat ``(N,)`` array — every
+vector op is then a pure element-wise op over contiguous lanes, and XLA
+fuses whole shading expressions into single kernels.
 
 ``Vec3`` is a registered pytree dataclass so it flows through ``jit``,
 ``vmap``, ``lax.scan`` and shardings unchanged.

@@ -4,8 +4,8 @@ A direct numpy transcription of the reference's recursive integrator
 (`/root/reference/src/renderer.rs:187-322` surface branch,
 `camera.rs:65-82`, `light.rs:34-45`, `material.rs:173-197/266-289`,
 closed-form shapes from `shape/*.rs`) used to anchor the wavefront
-integrator against an implementation that cannot share its bugs
-(VERDICT r2 "Missing #4"). f64 throughout, own RNG, recursive bounce
+integrator against an implementation that cannot share its bugs.
+f64 throughout, own RNG, recursive bounce
 structure (vectorized over rays only — no wavefront machinery, no
 compaction, no masking framework).
 

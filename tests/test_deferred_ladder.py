@@ -1,6 +1,6 @@
 """CPU coverage for the deferred traversal's ladder + cleanup machinery.
 
-VERDICT r3 Weak #6: the rung-compaction / pack-unpack / cleanup-stall code
+The rung-compaction / pack-unpack / cleanup-stall code
 (`deferred.py:432-652`) previously asserted per-lane identity only on
 wavefronts where the cleanup fixpoint was a no-op, and only with the
 default TOP_SEED setting. Here:

@@ -230,3 +230,60 @@ def test_on_plane_guard_keeps_legit_occluders():
     occ2 = np.asarray(occluded(cs, cs.tables, _ray(o2, d2),
                                jnp.full(m, 8.0, jnp.float32), coherent=False))
     assert occ2.all()
+
+
+def _lampshade_box():
+    """The lampshade's large box: scaled, rotated, translated (the same
+    transform examples/_lampshade.py builds)."""
+    return (rpt.cube().scale((165.0, 330.0, 165.0))
+            .rotate_y(2 * np.pi * (-253.0 / 360.0)).translate((368.0, 165.0, 351.0)))
+
+
+def _on_face_points(box, rng, m, noise):
+    """World points on the box's local +x face, with deposited-position
+    noise."""
+    local = np.stack([np.full(m, 0.5), rng.uniform(-0.45, 0.45, m),
+                      rng.uniform(-0.45, 0.45, m)], 1)
+    m4 = np.asarray(box.matrix)
+    world = local @ m4[:3, :3].T + m4[:3, 3]
+    return world + rng.normal(0.0, noise, world.shape), m4
+
+
+def test_box_face_pairs_not_self_occluded():
+    """Photon -> gather-point visibility rays between two points on the
+    same face of a transformed box slide along the face: never occluded by
+    that box, whatever side of the face rounding put each endpoint."""
+    from rpt_tpu.intersect import occluded
+
+    box = _lampshade_box()
+    cs = _scene_of(rpt.Object(box))
+    rng = np.random.default_rng(7)
+    a, _ = _on_face_points(box, rng, 4096, 5e-5)
+    b, _ = _on_face_points(box, rng, 4096, 5e-5)
+    disp = b - a
+    dist = np.linalg.norm(disp, axis=1)
+    occ = np.asarray(occluded(cs, cs.tables, _ray(a, disp),
+                              jnp.asarray(dist * (1 - 1e-3), jnp.float32),
+                              coherent=False))
+    assert occ.mean() == 0.0, f"{occ.mean():.1%} spurious box-face self-occlusion"
+
+
+def test_box_face_guard_keeps_legit_occluders():
+    """Rays from a face into the box, and rays through the box from
+    outside, are still occluded."""
+    from rpt_tpu.intersect import occluded
+
+    box = _lampshade_box()
+    cs = _scene_of(rpt.Object(box))
+    rng = np.random.default_rng(8)
+    m = 256
+    a, m4 = _on_face_points(box, rng, m, 5e-5)
+    inward = -m4[:3, 0] / np.linalg.norm(m4[:3, 0])  # local -x in world
+    d = inward + rng.normal(0.0, 0.3, (m, 3))
+    occ = np.asarray(occluded(cs, cs.tables, _ray(a, d),
+                              jnp.full(m, 1e3, jnp.float32), coherent=False))
+    assert occ.all()
+    # from 1 unit outside the face, straight through the box
+    occ = np.asarray(occluded(cs, cs.tables, _ray(a - inward, np.tile(inward, (m, 1))),
+                              jnp.full(m, 1e3, jnp.float32), coherent=False))
+    assert occ.all()

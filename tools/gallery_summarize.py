@@ -29,10 +29,10 @@ def main():
         json.dump(dict(results=results), f, indent=1)
 
     with open(os.path.join(OUT, "README.md"), "w") as f:
-        f.write("# Example gallery (real TPU renders)\n\n")
+        f.write("# Example gallery\n\n")
         f.write(
-            "Every image below was rendered on one TPU v5e chip by the\n"
-            "corresponding driver under `examples/` (preview scale; the\n"
+            "Every image below was rendered by the corresponding driver\n"
+            "under `examples/` (preview scale; the\n"
             "drivers' full-resolution parameters match the reference's).\n"
             "Photon drivers that the reference ships with `watts=100`\n"
             "render near-black by design — see PARITY.md.\n\n"
